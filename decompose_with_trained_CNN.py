@@ -2,10 +2,10 @@
 """Drop-in entry point: decompose an image with the trained reflectance CNN.
 
 Same flags and outputs as the reference script of the same name; the compute
-runs as a single XLA program on TPU.  See
-reflectance_filtering_tpu/cli/decompose.py.
+runs as one device program (a fused Triton kernel on an NVIDIA GPU).  See
+reflectance_filtering/cli/decompose.py.
 """
-from reflectance_filtering_tpu.cli.decompose import main
+from reflectance_filtering.cli.decompose import main
 
 if __name__ == "__main__":
     main()

@@ -1,17 +1,17 @@
-// Native IO runtime for reflectance_filtering_tpu.
+// Native IO runtime for reflectance_filtering.
 //
 // Replaces the host-side role OpenCV's C++ core played for the reference
 // (imread/resize feeding the network, SURVEY.md N5): a dependency-light,
 // thread-pooled image decoder + resizer that fills caller-allocated
 // [N, H, W, 3] uint8 RGB batches at full core parallelism, so a single
-// Python thread can keep the TPU's input pipeline fed.
+// Python thread can keep the accelerator's input pipeline fed.
 //
 // Formats: PNG (libpng, any bit depth/colortype -> 8-bit RGB) and JPEG
 // (libjpeg).  Resize: bilinear with half-pixel centers (OpenCV
 // INTER_LINEAR convention).
 //
 // C ABI only (consumed via ctypes from
-// reflectance_filtering_tpu/data/native_loader.py).  All functions return
+// reflectance_filtering/data/native_loader.py).  All functions return
 // 0 on success, negative error codes otherwise; no exceptions cross the
 // boundary.
 

@@ -15,7 +15,7 @@ moment a machine with opencv-contrib exists:
 
 Diff mode regenerates every out_* fixture from the real binary — called
 exactly the way the reference pipeline calls it
-(/root/reference/filter_reflectance.py:67-70:
+(the reference's filter_reflectance.py:67-70:
 ``cv2.ximgproc.guidedFilter(guide=joint, src=image, radius=int(r),
 eps=e)`` on uint8 0-255 inputs with eps unscaled) — on the SAME
 deterministic inputs (tests/make_guided_fixtures.make_images) and

@@ -2,7 +2,7 @@
 ximgproc/src/guided_filter.cpp (GuidedFilterImpl).
 
 WHY THIS EXISTS (VERDICT r2 item 1): the reference pipeline calls the
-cv2.ximgproc.guidedFilter *binary* (/root/reference/filter_reflectance.py:
+cv2.ximgproc.guidedFilter *binary* (the reference's filter_reflectance.py:
 67-70).  That binary is not acquirable in this environment — attempts,
 2026-08-17:
   * ``pip download opencv-contrib-python-headless``: no network
@@ -13,7 +13,7 @@ cv2.ximgproc.guidedFilter *binary* (/root/reference/filter_reflectance.py:
 Per the verdict's fallback, this file transcribes the C++ arithmetic
 into a SECOND oracle that is structurally independent from both the
 product implementation (ops/guided.py: cofactor*cov then /det, f32 jnp,
-Pallas/MXU boxes) and the existing float64 gate oracle
+block-local cumsum boxes) and the existing float64 gate oracle
 (tests/test_golden_gate.py::_guided64: all-f64, np.linalg.solve).
 
 Transcription map (C++ symbol -> here), following GuidedFilterImpl's

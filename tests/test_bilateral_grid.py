@@ -8,8 +8,8 @@ truncation mismatch, not grid resolution.
 """
 import numpy as np
 
-from reflectance_filtering_tpu.ops.bilateral import joint_bilateral_filter
-from reflectance_filtering_tpu.ops.bilateral_grid import (
+from reflectance_filtering.ops.bilateral import joint_bilateral_filter
+from reflectance_filtering.ops.bilateral_grid import (
     bilateral_grid_gray, bilateral_grid_u8)
 
 
@@ -47,12 +47,12 @@ def test_grid_joint_neq_src(rng):
     assert d.mean() <= 2.5 and np.percentile(d, 99) <= 12.0
 
 
-from reflectance_filtering_tpu.utils.testimages import pink_noise as _pink
+from reflectance_filtering.utils.testimages import pink_noise as _pink
 
 
 def test_grid_quality_point_p99(rng):
-    """The documented quality operating point (ss=8, sr=6; ~525 MP/s on
-    v5e) holds p99 error <= 1 uint8 level per image across the 6-class
+    """The documented quality operating point (ss=8, sr=6) holds p99
+    error <= 1 uint8 level per image across the 6-class
     quality set (hard edge / noise / binary / low-contrast / wedges /
     1/f pink noise)."""
     import jax.numpy as jnp

@@ -10,8 +10,8 @@ import os
 import numpy as np
 import pytest
 
-from reflectance_filtering_tpu.data import builder as B
-from reflectance_filtering_tpu.data.loader import get_data
+from reflectance_filtering.data import builder as B
+from reflectance_filtering.data.loader import get_data
 
 
 # ---------------------------------------------------------------------------
@@ -77,7 +77,7 @@ def test_build_and_load_roundtrip(iiw_dir, tmp_path):
         assert npz["comparisons"][0, -1, 0, 1] == float(ids[0])
 
     # linear variant is srgb_to_rgb of the sRGB one (floored)
-    from reflectance_filtering_tpu.utils.image import srgb_to_rgb
+    from reflectance_filtering.utils.image import srgb_to_rgb
     with np.load(out["sRGB"]) as a, np.load(out["linear"]) as b:
         np.testing.assert_allclose(
             b["images"], np.maximum(srgb_to_rgb(a["images"]), B.FLOOR),
@@ -105,7 +105,7 @@ def test_loader_missing_file(tmp_path):
 def test_loaded_comparisons_work_with_whdr(iiw_dir, tmp_path):
     """The packed blob flows directly into the WHDR op."""
     import jax.numpy as jnp
-    from reflectance_filtering_tpu.losses.whdr import whdr
+    from reflectance_filtering.losses.whdr import whdr
 
     d, ids = iiw_dir
     dsdir = tmp_path / "l" / "iiw"

@@ -4,9 +4,9 @@ import os
 
 import pytest
 
-from reflectance_filtering_tpu.models.draw import (network_graph,
+from reflectance_filtering.models.draw import (network_graph,
                                                    render_network_graph)
-from reflectance_filtering_tpu.models.networks import NetworkConfig
+from reflectance_filtering.models.networks import NetworkConfig
 
 CONFIGS = [
     NetworkConfig(),                                        # flagship

@@ -4,7 +4,7 @@ import os
 import numpy as np
 import pytest
 
-from reflectance_filtering_tpu.cli.filter import (
+from reflectance_filtering.cli.filter import (
     apply_filter, read_filter_write, main)
 
 
@@ -129,7 +129,7 @@ def test_missing_sigmas_raise_value_error():
     ValueError as non-positive ones, not a TypeError on None <= 0."""
     import numpy as np
     import pytest
-    from reflectance_filtering_tpu.cli.filter import apply_filter
+    from reflectance_filtering.cli.filter import apply_filter
 
     img = np.zeros((8, 8, 3), np.uint8)
     for sc, ss in ((None, 22.0), (20.0, None), (None, None)):

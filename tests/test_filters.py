@@ -14,9 +14,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from reflectance_filtering_tpu.ops.boxfilter import box_filter
-from reflectance_filtering_tpu.ops.guided import guided_filter, guided_filter_u8
-from reflectance_filtering_tpu.ops.bilateral import (
+from reflectance_filtering.ops.boxfilter import box_filter
+from reflectance_filtering.ops.guided import guided_filter, guided_filter_u8
+from reflectance_filtering.ops.bilateral import (
     joint_bilateral_filter, joint_bilateral_filter_u8, opencv_bilateral_params)
 
 
@@ -236,22 +236,20 @@ def test_jbf_gray_inputs(rng):
 def test_fast_guided_filter_close_to_exact(rng):
     """Fast Guided Filter (He 2015) with subsampling should track the
     exact filter on smooth natural-ish images; subsample=1 is exact."""
-    from reflectance_filtering_tpu.ops.guided import (
-        _guided_filter_planar_xla, fast_guided_filter)
+    from reflectance_filtering.ops.guided import (
+        fast_guided_filter, guided_filter_planar)
     import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
     yy, xx = np.mgrid[0:64, 0:64].astype(np.float32)
     guide = np.stack([120 + 60 * np.sin(xx / 9.0),
                       100 + 50 * np.cos(yy / 7.0),
                       90 + 40 * np.sin((xx + yy) / 11.0)])[None]
     src = (guide[:, :1] * 0.7 +
            10 * rng.rand(1, 1, 64, 64).astype(np.float32))
-    with pltpu.force_tpu_interpret_mode():
-        exact = np.asarray(_guided_filter_planar_xla(
-            jnp.asarray(guide), jnp.asarray(src), 8, 9.0))
-        fast = np.asarray(fast_guided_filter(
-            jnp.asarray(guide), jnp.asarray(src), 8, 9.0, subsample=2))
-        same = np.asarray(fast_guided_filter(
-            jnp.asarray(guide), jnp.asarray(src), 8, 9.0, subsample=1))
+    exact = np.asarray(guided_filter_planar(
+        jnp.asarray(guide), jnp.asarray(src), 8, 9.0))
+    fast = np.asarray(fast_guided_filter(
+        jnp.asarray(guide), jnp.asarray(src), 8, 9.0, subsample=2))
+    same = np.asarray(fast_guided_filter(
+        jnp.asarray(guide), jnp.asarray(src), 8, 9.0, subsample=1))
     assert np.abs(fast - exact).mean() < 1.0     # < 1 uint8 level on avg
     np.testing.assert_allclose(same, exact, rtol=1e-4, atol=1e-2)

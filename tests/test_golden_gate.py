@@ -25,10 +25,10 @@ import zlib
 import numpy as np
 import pytest
 
-from reflectance_filtering_tpu.cli.decompose import decompose_image
-from reflectance_filtering_tpu.cli.filter import read_filter_write
-from reflectance_filtering_tpu.losses.bell import compute_whdr
-from tests.test_golden_pipeline import _oracle_cnn, _synthetic_judgments
+from reflectance_filtering.cli.decompose import decompose_image
+from reflectance_filtering.cli.filter import read_filter_write
+from reflectance_filtering.losses.bell import compute_whdr
+from test_golden_pipeline import _oracle_cnn, _synthetic_judgments
 
 
 # ---------------------------------------------------------------------------

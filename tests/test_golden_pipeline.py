@@ -17,19 +17,17 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from reflectance_filtering_tpu.cli.decompose import (
+from reflectance_filtering.cli.decompose import (
     ReflectanceCNN, decompose_image)
-from reflectance_filtering_tpu.cli.filter import read_filter_write
-from reflectance_filtering_tpu.losses.bell import compute_whdr
-from reflectance_filtering_tpu.losses.whdr import whdr
-from reflectance_filtering_tpu.models.caffe_io import parse_caffemodel
-from reflectance_filtering_tpu.utils import image as iu
-
-CAFFEMODEL = "/root/reference/learned_weights.caffemodel"
+from reflectance_filtering.cli.filter import read_filter_write
+from reflectance_filtering.losses.bell import compute_whdr
+from reflectance_filtering.losses.whdr import whdr
+from reflectance_filtering.models import caffe_io
+from reflectance_filtering.utils import image as iu
 
 
 def _oracle_cnn(img_bgr_u8):
-    raw = parse_caffemodel(CAFFEMODEL)
+    raw = caffe_io.parse_caffemodel(caffe_io.DEFAULT_CAFFEMODEL)
     x = img_bgr_u8[:, :, ::-1].astype(np.float64) / 255.0
     x = np.where(x <= 0.04045, x / 12.92,
                  np.power((x + 0.055) / 1.055, 2.4))
@@ -149,7 +147,7 @@ def test_guided_pipeline_runs_and_is_stable(photo, tmp_path):
     # filtering the filtered map again moves it less than the first pass
     r0 = cv2.imread(rpath).astype(int)
     d1 = np.abs(once.astype(int) - r0).mean()
-    from reflectance_filtering_tpu.ops.guided import guided_filter_u8
+    from reflectance_filtering.ops.guided import guided_filter_u8
     guide = cv2.imread(path)
     twice = guided_filter_u8(guide, once, 8, 3.0)
     d2 = np.abs(twice.astype(int) - once.astype(int)).mean()

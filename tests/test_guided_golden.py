@@ -12,10 +12,9 @@ its docstring for the failed binary-acquisition record).  Two gates:
      a wrong border mode, normalization, precision or rounding choice
      in the product filters fails this against an arithmetic path it
      shares nothing with (f32 intermediates + explicit inverse here vs
-     f32/Pallas cofactor path there).
+     the f32 cofactor path there).
 
-The same fixtures are re-checked ON CHIP (real-TPU Pallas dispatch) by
-``python bench.py --gate`` (VERDICT r2 item 2).
+The same fixtures are re-checked on the GPU by ``python bench.py --gate``.
 """
 import os
 
@@ -63,7 +62,7 @@ def _assert_within_one_level(got, exp, tag):
 
 @pytest.mark.parametrize("radius,eps", COMBOS)
 def test_product_color_guide_matches_fixtures(golden, radius, eps):
-    from reflectance_filtering_tpu.ops.guided import guided_filter_u8
+    from reflectance_filtering.ops.guided import guided_filter_u8
     key = "small" if radius == 3 else "big"
     tag = "r{}_e{}".format(radius, int(eps))
     gc = golden["img_{}_guide_color".format(key)]
@@ -78,7 +77,7 @@ def test_product_color_guide_matches_fixtures(golden, radius, eps):
 
 @pytest.mark.parametrize("radius,eps", COMBOS)
 def test_product_gray_guide_matches_fixtures(golden, radius, eps):
-    from reflectance_filtering_tpu.ops.guided import guided_filter_u8
+    from reflectance_filtering.ops.guided import guided_filter_u8
     key = "small" if radius == 3 else "big"
     tag = "r{}_e{}".format(radius, int(eps))
     gg = golden["img_{}_guide_gray".format(key)]
@@ -112,14 +111,11 @@ def test_regen_script_import_guard():
 @pytest.mark.parametrize("shape", [(40, 512), (20, 512), (12, 40)])
 def test_degenerate_radius_matches_oracle(shape):
     """radius >= a dimension (tiny strips/thumbnails at the product
-    r=45): the whole-plane MXU path opts out (its band matrices assume
-    radius < dim) and the banded/fused dispatch must reproduce the
-    oracle via multi-fold reflect pads — both the Pallas dispatch and
-    the XLA fallback, byte-exact."""
-    from reflectance_filtering_tpu.ops.guided import (
-        guided_filter_planar_pallas, _guided_filter_planar_xla)
+    r=45): the planar filter must reproduce the oracle via multi-fold
+    reflect pads, and so must the HWC product path."""
+    from reflectance_filtering.ops.guided import (
+        guided_filter, guided_filter_planar)
     import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
 
     H, W = shape
     rng = np.random.RandomState(3)
@@ -128,11 +124,11 @@ def test_degenerate_radius_matches_oracle(shape):
     want = guided_filter_cpp_color(g8, s8, 45, 3.0)
     g = jnp.asarray(np.moveaxis(g8.astype(np.float32), -1, 0)[None])
     s = jnp.asarray(s8.astype(np.float32)[None, None])
-    # interpret mode: both paths run Pallas box/fused kernels on CPU
-    for name, fn in (("pallas", guided_filter_planar_pallas),
-                     ("xla", _guided_filter_planar_xla)):
-        with pltpu.force_tpu_interpret_mode():
-            q = np.asarray(fn(g, s, 45, 3.0))[0, 0]
+    for name, q in (
+            ("planar", np.asarray(guided_filter_planar(g, s, 45, 3.0))[0, 0]),
+            ("hwc", np.asarray(guided_filter(
+                jnp.asarray(g8.astype(np.float32)),
+                jnp.asarray(s8.astype(np.float32)), 45, 3.0)))):
         got = np.clip(np.rint(q), 0, 255).astype(np.uint8)
         d = np.abs(got.astype(np.int32) - want.astype(np.int32))
         assert d.max() <= 1, (name, shape, int(d.max()))

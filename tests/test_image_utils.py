@@ -8,7 +8,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from reflectance_filtering_tpu.utils import image as iu
+from reflectance_filtering.utils import image as iu
 
 
 def _ref_srgb_to_rgb(srgb):

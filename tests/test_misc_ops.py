@@ -4,10 +4,10 @@ import os
 import numpy as np
 import jax.numpy as jnp
 
-from reflectance_filtering_tpu.ops.baselines import rescaling_baseline
-from reflectance_filtering_tpu.ops.guided import (
+from reflectance_filtering.ops.baselines import rescaling_baseline
+from reflectance_filtering.ops.guided import (
     guided_filter, guided_filter_iterated)
-from reflectance_filtering_tpu.utils.profiling import (
+from reflectance_filtering.utils.profiling import (
     span, write_rate_artifact)
 
 

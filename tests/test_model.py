@@ -10,26 +10,24 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from reflectance_filtering_tpu.models import caffe_io, networks
-from reflectance_filtering_tpu.models.networks import (
+from reflectance_filtering.models import caffe_io, networks
+from reflectance_filtering.models.networks import (
     NetworkConfig, REFERENCE_CONFIG, apply_network, init_network,
     reflectance_net_apply, reference_params_from_caffe, head_channels,
 )
-from reflectance_filtering_tpu.models.recover import (
+from reflectance_filtering.models.recover import (
     recover_reflectance_shading, RS_EST_MODES, EPS,
 )
 
-CAFFEMODEL = "/root/reference/learned_weights.caffemodel"
+
+@pytest.fixture(scope="module")
+def ref_weights(seeded_caffemodel):
+    return caffe_io.load_reference_weights(seeded_caffemodel)
 
 
 @pytest.fixture(scope="module")
-def ref_weights():
-    return caffe_io.load_reference_weights(CAFFEMODEL)
-
-
-@pytest.fixture(scope="module")
-def raw_blobs():
-    return caffe_io.parse_caffemodel(CAFFEMODEL)
+def raw_blobs(seeded_caffemodel):
+    return caffe_io.parse_caffemodel(seeded_caffemodel)
 
 
 def test_converter_shapes(ref_weights):
@@ -223,3 +221,54 @@ def test_xavier_filler_stats():
     vals = np.asarray(k)
     assert vals.min() >= -a and vals.max() <= a
     assert abs(vals.mean()) < a / 10
+
+
+# --- seeded stand-in weights ----------------------------------------------------
+
+def test_seeded_caffemodel_roundtrips_through_parser(tmp_path):
+    """The writer emits the wire format parse_caffemodel reads: every
+    blob comes back bit-exact at its caffe shape, 4,513 floats."""
+    path = caffe_io.write_seeded_caffemodel(str(tmp_path / "s.caffemodel"),
+                                            seed=5)
+    raw = caffe_io.parse_caffemodel(path)
+    want = caffe_io.seeded_reference_blobs(5)
+    assert list(raw) == list(caffe_io.REFERENCE_BLOB_SHAPES)
+    for name, blobs in want.items():
+        for got, exp in zip(raw[name], blobs):
+            np.testing.assert_array_equal(got, exp)
+    w = caffe_io.load_reference_weights(path)
+    assert w["conv0"]["kernel"].shape == (1, 1, 3, 32)
+    assert sum(v["kernel"].size + v["bias"].size for v in w.values()) == 4513
+
+
+def test_seeded_weights_depend_only_on_seed():
+    a, b = caffe_io.seeded_reference_blobs(1), caffe_io.seeded_reference_blobs(1)
+    c = caffe_io.seeded_reference_blobs(2)
+    for name in a:
+        np.testing.assert_array_equal(a[name][0], b[name][0])
+        assert not np.array_equal(a[name][0], c[name][0])
+        # caffe's xavier filler bound
+        bound = np.sqrt(3.0 / np.prod(a[name][0].shape[1:]))
+        assert np.abs(a[name][0]).max() <= bound
+
+
+def test_missing_weights_error_names_path_and_remedy(tmp_path):
+    path = str(tmp_path / "nowhere" / "learned_weights.caffemodel")
+    with pytest.raises(FileNotFoundError) as err:
+        caffe_io.load_reference_weights(path)
+    assert path in str(err.value)
+    assert "write_seeded_caffemodel" in str(err.value)
+
+
+def test_default_weights_path_is_in_checkout():
+    """learned_weights.caffemodel in the checkout's root, beside the
+    scripts (read in a fresh interpreter: this session patches it)."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-c", "from reflectance_filtering.models import "
+         "caffe_io; print(caffe_io.DEFAULT_CAFFEMODEL)"],
+        cwd=root, capture_output=True, text=True, check=True).stdout
+    assert out.strip() == os.path.join(root, "learned_weights.caffemodel")

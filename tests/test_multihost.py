@@ -25,7 +25,7 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 import jax
 jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
-from reflectance_filtering_tpu.parallel.mesh import (
+from reflectance_filtering.parallel.mesh import (
     initialize_multihost, shard_batch)
 
 mesh = initialize_multihost(coordinator_address="localhost:12355",
@@ -67,12 +67,12 @@ pid = int(sys.argv[1])
 jax.distributed.initialize("localhost:12357", num_processes=2,
                            process_id=pid)
 import numpy as np, jax.numpy as jnp
-from reflectance_filtering_tpu.parallel.mesh import (
+from reflectance_filtering.parallel.mesh import (
     make_mesh, replicate, make_sharded_eval, shard_batch_multihost)
-from reflectance_filtering_tpu.models.networks import (NetworkConfig,
+from reflectance_filtering.models.networks import (NetworkConfig,
                                                        init_network)
-from reflectance_filtering_tpu.losses.whdr import whdr_per_image
-from reflectance_filtering_tpu.models.recover import (
+from reflectance_filtering.losses.whdr import whdr_per_image
+from reflectance_filtering.models.recover import (
     recover_reflectance_shading)
 
 assert jax.process_count() == 2 and jax.process_index() == pid
@@ -103,7 +103,7 @@ mean, per = fn(replicate(params, mesh), gi, gc, gv)
 got = float(mean)
 
 # single-device reference on the full set (local devices only)
-from reflectance_filtering_tpu.models.networks import apply_network
+from reflectance_filtering.models.networks import apply_network
 refl = jax.nn.relu(apply_network(params, jnp.asarray(imgs), cfg,
                                  train=False)["RS_est"])
 want_per = np.asarray(whdr_per_image(refl, jnp.asarray(comps), 0.1))
@@ -136,7 +136,7 @@ def test_shard_batch_multihost_single_process():
     """process_count==1 degenerate case: equals shard_batch."""
     import numpy as np
     import jax
-    from reflectance_filtering_tpu.parallel.mesh import (
+    from reflectance_filtering.parallel.mesh import (
         make_mesh, shard_batch, shard_batch_multihost)
 
     mesh = make_mesh()

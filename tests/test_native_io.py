@@ -8,7 +8,7 @@ import os
 import numpy as np
 import pytest
 
-from reflectance_filtering_tpu.data import native_loader as nl
+from reflectance_filtering.data import native_loader as nl
 
 
 @pytest.fixture(scope="module")
@@ -71,11 +71,11 @@ def test_missing_file_raises(tmp_path):
 def test_batch_feeds_decompose_pipeline(images):
     """Native batch -> device pipeline integration."""
     import jax.numpy as jnp
-    from reflectance_filtering_tpu.models.caffe_io import (
+    from reflectance_filtering.models.caffe_io import (
         load_reference_weights)
-    from reflectance_filtering_tpu.models.networks import (
+    from reflectance_filtering.models.networks import (
         reference_params_from_caffe, reflectance_net_apply)
-    from reflectance_filtering_tpu.utils.image import srgb_to_rgb
+    from reflectance_filtering.utils.image import srgb_to_rgb
 
     paths, _, _ = images
     batch = nl.load_batch_rgb(paths, 32, 32)
@@ -87,7 +87,7 @@ def test_batch_feeds_decompose_pipeline(images):
 
 
 def test_empty_batch_returns_empty_array():
-    from reflectance_filtering_tpu.data.native_loader import load_batch_rgb
+    from reflectance_filtering.data.native_loader import load_batch_rgb
     out = load_batch_rgb([], 8, 8)
     assert out.shape == (0, 8, 8, 3) and out.dtype == np.uint8
 
@@ -110,7 +110,7 @@ def test_probe_rejects_absurd_header(tmp_path):
 
 def test_bad_dimensions_raise_value_error(images):
     import pytest
-    from reflectance_filtering_tpu.data.native_loader import load_batch_rgb
+    from reflectance_filtering.data.native_loader import load_batch_rgb
     with pytest.raises(ValueError):
         load_batch_rgb([images[0]], 0, 64)
     with pytest.raises(ValueError):

@@ -10,18 +10,18 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from reflectance_filtering_tpu.models.networks import (
+from reflectance_filtering.models.networks import (
     NetworkConfig, init_network)
-from reflectance_filtering_tpu.train.loop import (
+from reflectance_filtering.train.loop import (
     LossConfig, make_optimizer, make_train_step)
-from reflectance_filtering_tpu.parallel.mesh import (
+from reflectance_filtering.parallel.mesh import (
     make_mesh, make_sharded_train_step, eval_dataset_sharded,
     replicate, shard_batch, pad_to_multiple)
-from reflectance_filtering_tpu.parallel.spatial import (
+from reflectance_filtering.parallel.spatial import (
     sharded_box_filter, sharded_joint_bilateral)
-from reflectance_filtering_tpu.ops.boxfilter import box_filter
-from reflectance_filtering_tpu.ops.bilateral import joint_bilateral_filter
-from tests.test_whdr import make_blob, random_comps
+from reflectance_filtering.ops.boxfilter import box_filter
+from reflectance_filtering.ops.bilateral import joint_bilateral_filter
+from test_whdr import make_blob, random_comps
 
 
 @pytest.fixture(scope="module")
@@ -55,12 +55,12 @@ def test_pad_to_multiple():
 
 
 def test_sharded_eval_matches_single_device(mesh8, cfg, data):
-    from reflectance_filtering_tpu.losses.whdr import whdr
+    from reflectance_filtering.losses.whdr import whdr
     params = init_network(jax.random.PRNGKey(0), cfg)
     mean_s, per_image = eval_dataset_sharded(params, data, cfg, mesh8)
 
     # single-device reference
-    from reflectance_filtering_tpu.train.predict import make_predict_fn
+    from reflectance_filtering.train.predict import make_predict_fn
     fn = make_predict_fn(cfg)
     res = fn(params, jnp.asarray(data["images"]))
     refl = np.asarray(res["reflectance"])
@@ -119,24 +119,9 @@ def test_sharded_bilateral_matches_local(mesh8):
     np.testing.assert_allclose(got, exp, rtol=1e-4, atol=1e-3)
 
 
-def test_sharded_pallas_box_through_halo(mesh8):
-    """The Pallas kernels compose with the ppermute halo exchange: per
-    shard the kernel runs in VMEM, only halo columns cross ICI.  (Kept
-    tiny: interpret-mode Pallas inside an 8-way shard_map is slow on the
-    CPU mesh; the full-size variant runs on the chip — see CLAUDE.md.)"""
-    from jax.experimental.pallas import tpu as pltpu
-    rng = np.random.RandomState(3)
-    x = (rng.rand(8, 32, 3) * 255).astype(np.float32)
-    with pltpu.force_tpu_interpret_mode():
-        got_box = np.asarray(sharded_box_filter(
-            jnp.asarray(x), 2, mesh8, impl="pallas"))
-    exp_box = np.asarray(box_filter(jnp.asarray(x), 2, border="reflect101"))
-    np.testing.assert_allclose(got_box, exp_box, rtol=1e-5, atol=1e-3)
-
-
 def test_sharded_guided_filter_matches_local(mesh8):
-    from reflectance_filtering_tpu.ops.guided import guided_filter
-    from reflectance_filtering_tpu.parallel.spatial import (
+    from reflectance_filtering.ops.guided import guided_filter
+    from reflectance_filtering.parallel.spatial import (
         sharded_guided_filter)
     rng = np.random.RandomState(4)
     guide = (rng.rand(24, 64, 3) * 255).astype(np.float32)
@@ -149,76 +134,49 @@ def test_sharded_guided_filter_matches_local(mesh8):
     np.testing.assert_allclose(got, exp, rtol=1e-4, atol=5e-3)
 
 
-def test_sharded_guided_filter_pallas_impl(mesh8):
-    """impl='pallas' routes each shard through the planar MXU/fused
-    kernels (VERDICT r2 weak #6) — on a real slice the sharded GF now
-    uses the same fast kernels as the single-chip path.  Kept tiny:
-    interpret-mode Pallas inside an 8-way shard_map is slow on CPU."""
-    from jax.experimental.pallas import tpu as pltpu
-    from reflectance_filtering_tpu.ops.guided import guided_filter
-    from reflectance_filtering_tpu.parallel.spatial import (
-        sharded_guided_filter)
-    rng = np.random.RandomState(5)
-    guide = (rng.rand(8, 32, 3) * 255).astype(np.float32)
-    src = (rng.rand(8, 32) * 255).astype(np.float32)
-    # halo 2r = 2 < 4 columns/shard
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(sharded_guided_filter(
-            jnp.asarray(guide), jnp.asarray(src), 1, 9.0, mesh8,
-            impl="pallas"))
-    exp = np.asarray(guided_filter(jnp.asarray(guide), jnp.asarray(src),
-                                   1, 9.0))
-    # MXU band-matmul boxes (bf16x3 data split) vs the XLA f32 filter:
-    # agreement is ~1e-3 on 0-255 values, far inside the 1-uint8 gate
-    np.testing.assert_allclose(got, exp, rtol=1e-4, atol=0.05)
-    np.testing.assert_array_equal(np.rint(np.clip(got, 0, 255)),
-                                  np.rint(np.clip(exp, 0, 255)))
-
-
-def test_sharded_bilateral_self_guided_fast_kernels(mesh8):
-    """The sharded SELF-GUIDED bilateral wrappers route each shard
-    through the specialized kernels (gray-self 1 roll/tap, packed
-    color-self) and match the single-device oracle path.  joint==src is
-    static knowledge the host-side u8 dispatch cannot discover inside
-    shard_map, hence the dedicated entry points."""
-    from jax.experimental.pallas import tpu as pltpu
-    from reflectance_filtering_tpu.parallel.spatial import (
-        sharded_bilateral_color_self, sharded_bilateral_gray_self)
+def test_sharded_bilateral_self_guided_fast_kernels(mesh8, triton_interpret):
+    """The sharded SELF-GUIDED bilateral (src=None) runs the Triton
+    kernel per shard and matches the single-device oracle: the
+    BF(CNN,CNN) -r.png case (a gray plane standing for 3 equal channels)
+    and cv2.bilateralFilter's colour-self case."""
     rng = np.random.RandomState(8)
     gray = np.floor(rng.rand(16, 64) * 256).astype(np.float32)
-    # impl='pallas' explicitly: 'auto' resolves to the XLA fallback on
-    # the CPU test mesh, which would leave the specialized-kernel
-    # branches (the whole point of these wrappers) uncovered
-    with pltpu.force_tpu_interpret_mode():
-        got_g = np.asarray(sharded_bilateral_gray_self(
-            jnp.asarray(gray), mesh8, sigma_color=20.0, sigma_space=2.0,
-            reps=3, impl="pallas"))
+    got_g = np.asarray(sharded_joint_bilateral(
+        jnp.asarray(gray[..., None]), None, mesh8, sigma_color=20.0,
+        sigma_space=2.0, joint_reps=3))[..., 0]
     rep3 = np.repeat(gray[..., None], 3, -1)
     exp_g = np.asarray(joint_bilateral_filter(rep3, rep3, -1, 20.0,
                                               2.0))[..., 0]
     np.testing.assert_allclose(got_g, exp_g, rtol=1e-4, atol=0.05)
 
     col = np.floor(rng.rand(16, 64, 3) * 256).astype(np.float32)
-    with pltpu.force_tpu_interpret_mode():
-        got_c = np.asarray(sharded_bilateral_color_self(
-            jnp.asarray(col), mesh8, sigma_color=20.0, sigma_space=2.0,
-            impl="pallas"))
+    got_c = np.asarray(sharded_joint_bilateral(
+        jnp.asarray(col), None, mesh8, sigma_color=20.0, sigma_space=2.0))
     exp_c = np.asarray(joint_bilateral_filter(col, col, -1, 20.0, 2.0))
     np.testing.assert_allclose(got_c, exp_c, rtol=1e-4, atol=0.05)
 
-    # XLA fallback impl agrees too
-    got_gx = np.asarray(sharded_bilateral_gray_self(
-        jnp.asarray(gray), mesh8, sigma_color=20.0, sigma_space=2.0,
-        reps=3, impl="xla"))
-    np.testing.assert_allclose(got_gx, exp_g, rtol=1e-5, atol=1e-3)
+
+@pytest.mark.parametrize("cj,cs", [(3, 1), (1, 3), (3, 3)])
+def test_sharded_joint_bilateral_triton_per_shard(mesh8, triton_interpret,
+                                                  cj, cs):
+    """joint != src through the Triton kernel in every shard (halo r=3
+    on 8-column shards) equals the single-device reference."""
+    rng = np.random.RandomState(10 + cj + cs)
+    joint = np.floor(rng.rand(16, 64, cj) * 256).astype(np.float32)
+    src = np.floor(rng.rand(16, 64, cs) * 256).astype(np.float32)
+    got = np.asarray(sharded_joint_bilateral(
+        jnp.asarray(joint), jnp.asarray(src), mesh8, sigma_color=20.0,
+        sigma_space=2.0))
+    exp = np.asarray(joint_bilateral_filter(joint, src, -1, 20.0, 2.0))
+    np.testing.assert_allclose(got, exp, rtol=1e-4, atol=0.05)
 
 
 def test_sharded_guided_iterated_matches_local(mesh8):
     """8-device sharded 3x-GF chain == the single-device chain at the
     PRODUCT radius (r=45; VERDICT r4 item 3).  One halo exchange of
     iterations*2r = 270 columns, 320 columns/shard."""
-    from reflectance_filtering_tpu.ops.guided import guided_filter_iterated
-    from reflectance_filtering_tpu.parallel.spatial import (
+    from reflectance_filtering.ops.guided import guided_filter_iterated
+    from reflectance_filtering.parallel.spatial import (
         sharded_guided_filter_iterated)
     rng = np.random.RandomState(6)
     h, w, r, iters = 64, 2560, 45, 3
@@ -236,33 +194,8 @@ def test_sharded_guided_iterated_matches_local(mesh8):
     assert d.max() <= 1 and (d > 0).mean() < 1e-4, (d.max(), (d > 0).mean())
 
 
-def test_sharded_guided_iterated_pallas_impl(mesh8):
-    """impl='pallas' routes each shard's chain through the planar
-    MXU/fused kernels (the dispatch the real-TPU path takes).  Kept
-    tiny — interpret-mode Pallas inside an 8-way shard_map is slow."""
-    from jax.experimental.pallas import tpu as pltpu
-    from reflectance_filtering_tpu.ops.guided import guided_filter_iterated
-    from reflectance_filtering_tpu.parallel.spatial import (
-        sharded_guided_filter_iterated)
-    rng = np.random.RandomState(7)
-    h, w, r, iters = 8, 128, 2, 2   # halo 8 <= 16 columns/shard
-    guide = np.floor(rng.rand(h, w, 3) * 256).astype(np.float32)
-    src = np.floor(rng.rand(h, w) * 256).astype(np.float32)
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(sharded_guided_filter_iterated(
-            jnp.asarray(guide), jnp.asarray(src), r, 3.0, iters, mesh8,
-            impl="pallas"))
-    exp = np.asarray(guided_filter_iterated(
-        jnp.asarray(guide), jnp.asarray(src), r, 3.0, iters))
-    # MXU band-matmul boxes (bf16x3 split) vs the XLA f32 chain: ~1e-3
-    # agreement on 0-255 values; rare rint .5-boundary straddles
-    np.testing.assert_allclose(got, exp, rtol=1e-4, atol=0.05)
-    d = np.abs(np.rint(np.clip(got, 0, 255)) - np.rint(np.clip(exp, 0, 255)))
-    assert d.max() <= 1 and (d > 0).mean() < 0.005, (d.max(), (d > 0).mean())
-
-
 def test_sharded_guided_iterated_narrow_shards_raise(mesh8):
-    from reflectance_filtering_tpu.parallel.spatial import (
+    from reflectance_filtering.parallel.spatial import (
         sharded_guided_filter_iterated)
     guide = jnp.zeros((16, 256, 3))   # 32 cols/shard < 3*2*45
     src = jnp.zeros((16, 256))
@@ -274,8 +207,8 @@ def test_score_whdr_per_image_matches_host_loop(data):
     """The product eval path (predict_and_score) scores WHDR as one
     sharded device program; values must match the per-image host loop it
     replaced (helper:565-583)."""
-    from reflectance_filtering_tpu.losses.whdr import whdr
-    from reflectance_filtering_tpu.train.predict import score_whdr_per_image
+    from reflectance_filtering.losses.whdr import whdr
+    from reflectance_filtering.train.predict import score_whdr_per_image
 
     rng = np.random.RandomState(3)
     n = 11  # not a multiple of 8: exercises the pad+crop path
@@ -294,7 +227,7 @@ def test_predict_batched_sharded_matches_unsharded(mesh8, cfg):
     """predict_batched shards each batch across the mesh; outputs must be
     identical to a single-device run of the same jitted program."""
     from jax.sharding import Mesh
-    from reflectance_filtering_tpu.train.predict import (
+    from reflectance_filtering.train.predict import (
         make_predict_fn, predict_batched)
 
     rng = np.random.RandomState(1)
@@ -312,18 +245,17 @@ def test_predict_batched_sharded_matches_unsharded(mesh8, cfg):
 def test_sharded_wrappers_narrow_shards_raise(mesh8):
     """Every halo-exchange wrapper must reject too-narrow shards with a
     clear message (not an opaque concatenate-shape mismatch)."""
-    from reflectance_filtering_tpu.parallel.spatial import (
+    from reflectance_filtering.parallel.spatial import (
         sharded_joint_bilateral, sharded_box_filter)
     img = jnp.zeros((16, 8 * 16, 3), jnp.float32)  # 16 cols/shard
     with pytest.raises(ValueError, match="too narrow"):
         # radius 33 at the product sigmas >> 16-col shards
-        sharded_joint_bilateral(img, img, mesh8, -1, 20.0, 22.0,
-                                impl="xla")
+        sharded_joint_bilateral(img, img, mesh8, -1, 20.0, 22.0)
     with pytest.raises(ValueError, match="too narrow"):
-        sharded_box_filter(img, 20, mesh8, impl="xla")
+        sharded_box_filter(img, 20, mesh8)
     with pytest.raises(ValueError, match="divisible"):
         sharded_box_filter(jnp.zeros((16, 100, 3), jnp.float32), 2,
-                           mesh8, impl="xla")
+                           mesh8)
 
 
 def test_eval_dataset_sharded_chunked_matches_whole(mesh8, cfg, data):

@@ -7,10 +7,10 @@ import pytest
 
 import jax
 
-from reflectance_filtering_tpu.models.networks import (
+from reflectance_filtering.models.networks import (
     NetworkConfig, init_network)
-from reflectance_filtering_tpu.train import predict as P
-from reflectance_filtering_tpu.utils.image import (
+from reflectance_filtering.train import predict as P
+from reflectance_filtering.utils.image import (
     srgb_to_rgb, rgb_to_srgb, normalize)
 
 

@@ -9,19 +9,19 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from reflectance_filtering_tpu.models.networks import (
+from reflectance_filtering.models.networks import (
     NetworkConfig, init_network)
-from reflectance_filtering_tpu.train.description import (
+from reflectance_filtering.train.description import (
     get_description, parse_description)
-from reflectance_filtering_tpu.train.checkpoint import (
+from reflectance_filtering.train.checkpoint import (
     Checkpointer, load_checkpoint, save_checkpoint)
-from reflectance_filtering_tpu.train.loop import (
+from reflectance_filtering.train.loop import (
     LossConfig, compute_losses, fit, make_optimizer)
-from reflectance_filtering_tpu.train.monitors import (
+from reflectance_filtering.train.monitors import (
     CombineLosses, JsonlLogger, RunningAverage)
-from reflectance_filtering_tpu.train.predict import (
+from reflectance_filtering.train.predict import (
     make_predict_fn, predict_and_score, predict_batched)
-from tests.test_whdr import make_blob, random_comps
+from test_whdr import make_blob, random_comps
 
 
 def _args(**kw):
@@ -230,9 +230,9 @@ def test_bn_train_step_folds_running_stats(tiny_data):
     """With use_batch_normalization, the train step must EMA-fold the batch
     statistics into the bn params (caffe BatchNorm moving average,
     moving_average_fraction=0.999) without letting Adam touch them."""
-    from reflectance_filtering_tpu.models.networks import (
+    from reflectance_filtering.models.networks import (
         BN_MOMENTUM, apply_network)
-    from reflectance_filtering_tpu.train.loop import make_train_step
+    from reflectance_filtering.train.loop import make_train_step
 
     # convStaticSkipLayers: the reference honors the BN flag only for
     # the skip-layer/cascade families (convStatic hardcodes it off,
@@ -265,7 +265,7 @@ def test_bn_train_step_folds_running_stats(tiny_data):
 def test_bn_eval_uses_running_stats(tiny_data):
     """train=False must normalize with the stored running stats (caffe TEST
     phase), so different eval batches see the same normalization."""
-    from reflectance_filtering_tpu.models.networks import batch_norm
+    from reflectance_filtering.models.networks import batch_norm
     params = {"mean": jnp.asarray([1.0, -2.0]),
               "var": jnp.asarray([4.0, 0.25])}
     x = jnp.asarray(np.random.RandomState(0).rand(2, 3, 3, 2), jnp.float32)
@@ -306,7 +306,7 @@ def test_cascade_rdirectly_falls_back_to_rrelmax(tiny_data):
     rDirectly mode and warns+falls back to rRelMax
     (recover_reflectance_shading_layer.py:104-109), so level 0 must still
     emit a 3-channel reflectance for the level-1 trunk."""
-    from reflectance_filtering_tpu.models.networks import apply_network
+    from reflectance_filtering.models.networks import apply_network
     cfg = NetworkConfig(network_type="cascadeSkipLayers", num_layers=2,
                         num_filters_log=3, kernel_pad=0,
                         rs_est_mode="rDirectly")
@@ -318,7 +318,7 @@ def test_cascade_rdirectly_falls_back_to_rrelmax(tiny_data):
 
 
 def test_matmul_precision_context_restores():
-    from reflectance_filtering_tpu.models import networks as N
+    from reflectance_filtering.models import networks as N
     assert N._matmul_precision == jax.lax.Precision.HIGHEST
     with N.matmul_precision("default"):
         assert N._matmul_precision == jax.lax.Precision.DEFAULT
@@ -330,7 +330,7 @@ def test_matmul_precision_context_restores():
 
 def test_conv2d_1x1_dot_matches_conv_path(rng):
     """The 1x1-as-dot lowering must agree with the general conv path."""
-    from reflectance_filtering_tpu.models.networks import conv2d
+    from reflectance_filtering.models.networks import conv2d
     k = rng.randn(1, 1, 5, 7).astype(np.float32)
     b = rng.randn(7).astype(np.float32)
     x = jnp.asarray(rng.rand(2, 6, 9, 5).astype(np.float32))
@@ -349,8 +349,8 @@ def test_recover_gradients_match_finite_difference(mode, rng):
     """JAX autodiff through the R/S recovery interpreters vs numeric
     gradients — the check the reference's hand-derived backward never had
     (recover_reflectance_shading_layer.py:206-244)."""
-    from reflectance_filtering_tpu.models.networks import head_channels
-    from reflectance_filtering_tpu.models.recover import (
+    from reflectance_filtering.models.networks import head_channels
+    from reflectance_filtering.models.recover import (
         recover_reflectance_shading)
     c = head_channels(mode)
     est = rng.rand(1, 4, 4, c).astype(np.float32) + 0.5
@@ -395,25 +395,21 @@ def test_conv_static_hardcodes_bn_off():
         assert not any(k.startswith("bn") for k in params), sorted(params)
 
 
-def test_fit_chunked_matches_per_step_trainer(tiny_data):
+def test_fit_chunked_matches_per_step_trainer(tiny_data, monkeypatch):
     """The scan-chunked device-resident trainer must reproduce the
     per-step trainer exactly: same batches (dynamic_slice of the
     wrap-padded set vs elementwise modulo), same per-step RNG, same
     optimizer trajectory."""
-    from reflectance_filtering_tpu.train import loop as L
+    from reflectance_filtering.train import loop as L
     cfg = NetworkConfig(network_type="convStaticSkipLayers", num_layers=2,
                         num_filters_log=3, kernel_pad=0,
                         rs_est_mode="rDirectly")
     lcfg = LossConfig()
     st_chunked = fit(cfg, lcfg, tiny_data, iterations=40, batch_size=4,
                      base_lr=0.01, random_seed=7)
-    budget = L.DEVICE_FEED_BUDGET_BYTES
-    try:
-        L.DEVICE_FEED_BUDGET_BYTES = 0   # force the per-step path
-        st_step = fit(cfg, lcfg, tiny_data, iterations=40, batch_size=4,
-                      base_lr=0.01, random_seed=7)
-    finally:
-        L.DEVICE_FEED_BUDGET_BYTES = budget
+    monkeypatch.setattr(L, "DEVICE_FEED_SHARE", 0)  # the per-step path
+    st_step = fit(cfg, lcfg, tiny_data, iterations=40, batch_size=4,
+                  base_lr=0.01, random_seed=7)
     la = jax.tree_util.tree_leaves(st_chunked.params)
     lb = jax.tree_util.tree_leaves(st_step.params)
     assert len(la) == len(lb)
@@ -441,7 +437,7 @@ def test_fit_live_val_whdr(tiny_data, tmp_path):
     """Live validation WHDR (reference: interleaved test phase +
     progressbar 'Test' field): val_fn runs at every checkpoint save and
     the value rides the metric stream of subsequent steps."""
-    from reflectance_filtering_tpu.train.loop import make_val_whdr_fn
+    from reflectance_filtering.train.loop import make_val_whdr_fn
 
     cfg = NetworkConfig(network_type="convStaticSkipLayers", num_layers=2,
                         num_filters_log=3, kernel_pad=0,
@@ -481,9 +477,9 @@ def test_fit_live_val_whdr(tiny_data, tmp_path):
 def test_make_val_whdr_matches_direct_whdr(tiny_data):
     """The scan-batched evaluator equals a direct per-image computation
     (pad rows masked out)."""
-    from reflectance_filtering_tpu.train.loop import make_val_whdr_fn
-    from reflectance_filtering_tpu.losses.whdr import whdr_per_image
-    from reflectance_filtering_tpu.models.networks import apply_network
+    from reflectance_filtering.train.loop import make_val_whdr_fn
+    from reflectance_filtering.losses.whdr import whdr_per_image
+    from reflectance_filtering.models.networks import apply_network
 
     cfg = NetworkConfig(network_type="convStaticSkipLayers", num_layers=2,
                         num_filters_log=3, kernel_pad=0,
@@ -556,7 +552,7 @@ def test_predict_and_score_tolerates_poisoned_cache(tiny_data, tmp_path):
 def test_make_val_whdr_host_fed_fallback(tiny_data, monkeypatch):
     """A val split over the HBM budget falls back to host-fed batches
     with the same value (up to reduction-order last bits)."""
-    from reflectance_filtering_tpu.train import loop as L
+    from reflectance_filtering.train import loop as L
 
     cfg = NetworkConfig(network_type="convStaticSkipLayers", num_layers=2,
                         num_filters_log=3, kernel_pad=0,
@@ -565,6 +561,27 @@ def test_make_val_whdr_host_fed_fallback(tiny_data, monkeypatch):
     val = {"images": tiny_data["images"][:5],
            "comparisons": tiny_data["comparisons"][:5]}
     resident = L.make_val_whdr_fn(cfg, val, batch_size=2)(params)
-    monkeypatch.setattr(L, "VAL_FEED_BUDGET_BYTES", 0)
+    monkeypatch.setattr(L, "VAL_FEED_SHARE", 0)
     hosted = L.make_val_whdr_fn(cfg, val, batch_size=2)(params)
     assert hosted == pytest.approx(resident, rel=1e-6, abs=1e-7)
+
+
+@pytest.mark.parametrize("stats,share,want", [
+    ({"bytes_limit": 80 * 1024 ** 3}, 0.5, 40 * 1024 ** 3),
+    ({"bytes_limit": 8000}, 0.125, 1000),
+    (None, 0.5, 8 * 1024 ** 3),          # the CPU reports no stats
+    ({"bytes_in_use": 5}, 0.125, 2 * 1024 ** 3),
+    ({"bytes_limit": 8000}, 0, 0)])
+def test_feed_budget_is_a_share_of_the_device_limit(monkeypatch, stats,
+                                                    share, want):
+    """fit()'s feed caps are shares of the device's bytes_limit, or of the
+    stated host budget where the backend reports none."""
+    from reflectance_filtering.train import loop as L
+
+    class _Device:
+        def memory_stats(self):
+            return stats
+
+    monkeypatch.setattr(L.jax, "devices", lambda: [_Device()])
+    assert L.HOST_MEMORY_BUDGET_BYTES == 16 * 1024 ** 3
+    assert L._feed_budget(share) == want

@@ -1,12 +1,13 @@
 """End-to-end test of the train CLI on synthetic data (CPU mesh)."""
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
 
-from reflectance_filtering_tpu.data import builder as B
-from reflectance_filtering_tpu.train.monitors import JsonlLogger, vis_square
+from reflectance_filtering.data import builder as B
+from reflectance_filtering.train.monitors import JsonlLogger, vis_square
 
 
 @pytest.fixture(scope="module")
@@ -42,7 +43,7 @@ def dataset(tmp_path_factory):
 
 
 def test_fit_lifecycle(dataset, tmp_path):
-    from reflectance_filtering_tpu.cli.train import main
+    from reflectance_filtering.cli.train import main
     results_root = str(tmp_path / "results")
     main(["--stage=fit", "--iterations=16", "--batch_size=4",
           "--checkpoint_interval=8", "--networkType=convStaticSkipLayers",
@@ -78,7 +79,7 @@ def test_checkpoint_interval_rounds_to_batch_multiple(dataset, tmp_path):
     """Snapshots happen on batch boundaries: an interval of 6 with batch 4
     must round down to 4 (the reference asserted multiples instead,
     extend_monitoring.py:84-86)."""
-    from reflectance_filtering_tpu.cli.train import main
+    from reflectance_filtering.cli.train import main
     results_root = str(tmp_path / "results")
     main(["--stage=fit", "--iterations=8", "--batch_size=4",
           "--checkpoint_interval=6", "--networkType=convStaticSkipLayers",
@@ -93,7 +94,7 @@ def test_checkpoint_interval_rounds_to_batch_multiple(dataset, tmp_path):
 
 def test_predict_decompose_from_checkpoint(dataset, tmp_path):
     import cv2
-    from reflectance_filtering_tpu.cli.train import main
+    from reflectance_filtering.cli.train import main
     results_root = str(tmp_path / "results")
     main(["--stage=fit", "--iterations=8", "--batch_size=4",
           "--checkpoint_interval=8", "--networkType=convStaticSkipLayers",
@@ -129,7 +130,7 @@ def test_predict_without_size_flags_uses_checkpoint_size(dataset, tmp_path):
     """Predict-and-score with NO --height/--width: the sizes come from
     the checkpoint filename (round-5 fix — previously the val blob
     loaded at the 256x256 default and the run died)."""
-    from reflectance_filtering_tpu.cli.train import main
+    from reflectance_filtering.cli.train import main
     results_root = str(tmp_path / "results")
     main(["--stage=fit", "--iterations=8", "--batch_size=4",
           "--checkpoint_interval=8", "--networkType=convStaticSkipLayers",
@@ -148,21 +149,24 @@ def test_predict_without_size_flags_uses_checkpoint_size(dataset, tmp_path):
     assert any(snap.replace(".npz", "") in s for s in scores)
 
 
-def test_predict_decompose_accepts_raw_caffemodel_name(tmp_path):
+def test_predict_decompose_accepts_raw_caffemodel_name(tmp_path,
+                                                        seeded_caffemodel):
     """The reference's learned_weights.caffemodel has no config-encoding
     name; predict must not crash on the parse — network args come from
     the CLI flags (the reference contract for .caffemodel inputs), and
     a decompose-only run needs no dataset at all."""
     import cv2
-    from reflectance_filtering_tpu.cli.train import main
+    from reflectance_filtering.cli.train import main
     img_dir = tmp_path / "imgs"
     img_dir.mkdir()
     rng = np.random.RandomState(1)
     cv2.imwrite(str(img_dir / "b.png"),
                 (rng.rand(20, 20, 3) * 255).astype(np.uint8))
     results_root = str(tmp_path / "results")
+    weights = str(tmp_path / "learned_weights.caffemodel")
+    shutil.copy(seeded_caffemodel, weights)
     main(["--stage=predict",
-          "--predictCaffemodel", "/root/reference/learned_weights.caffemodel",
+          "--predictCaffemodel", weights,
           "--networkType=convStaticSkipLayers", "--numLayers=5",
           "--num_filters_log=5", "--kernel_pad=0",
           "--RS_est_mode=rDirectly",
@@ -178,10 +182,10 @@ def test_resume_matches_uninterrupted(dataset, tmp_path):
     """startOver=0 resume: train(8)+resume-to-16 must equal train(16) —
     params, optimizer state, data cursor, and RNG stream all continue."""
     import jax
-    from reflectance_filtering_tpu.cli.train import main
-    from reflectance_filtering_tpu.cli.train import net_config_from_args
-    from reflectance_filtering_tpu.train.checkpoint import load_checkpoint
-    from reflectance_filtering_tpu.models.networks import init_network
+    from reflectance_filtering.cli.train import main
+    from reflectance_filtering.cli.train import net_config_from_args
+    from reflectance_filtering.train.checkpoint import load_checkpoint
+    from reflectance_filtering.models.networks import init_network
 
     common = ["--batch_size=4", "--checkpoint_interval=8",
               "--networkType=convStaticSkipLayers", "--numLayers=1",
@@ -222,7 +226,7 @@ def test_resume_matches_uninterrupted(dataset, tmp_path):
 def test_resume_skips_when_complete(dataset, tmp_path, capsys):
     """startOver=0 with a snapshot >= iterations skips training (the old
     eval-only behavior is preserved)."""
-    from reflectance_filtering_tpu.cli.train import main
+    from reflectance_filtering.cli.train import main
     root = str(tmp_path / "r")
     common = ["--batch_size=4", "--checkpoint_interval=8",
               "--networkType=convStaticSkipLayers", "--numLayers=1",
@@ -242,7 +246,7 @@ def test_resume_skip_with_different_batch_size(dataset, tmp_path):
     crashing with FileNotFoundError."""
     import os
 
-    from reflectance_filtering_tpu.cli.train import main
+    from reflectance_filtering.cli.train import main
     root = str(tmp_path / "r")
     common = ["--networkType=convStaticSkipLayers", "--numLayers=1",
               "--num_filters_log=2", "--kernel_pad=0",
@@ -261,7 +265,7 @@ def test_resume_skip_with_different_batch_size(dataset, tmp_path):
 def test_iterations_below_batch_size_raises(dataset, tmp_path):
     """iterations < batch_size would run zero steps and then crash on a
     missing checkpoint; it must fail loudly up front instead."""
-    from reflectance_filtering_tpu.cli.train import main
+    from reflectance_filtering.cli.train import main
     with pytest.raises(ValueError, match="batch_size"):
         main(["--stage=fit", "--iterations=2", "--batch_size=4",
               "--networkType=convStaticSkipLayers", "--numLayers=1",
@@ -275,7 +279,7 @@ def test_iterations_below_batch_size_raises(dataset, tmp_path):
 def test_sintel_dataset_fails_loudly(dataset, tmp_path):
     """The reference's sintel mode silently trains on nothing (its WHDR
     layers never read the albedos bottom); we raise instead."""
-    from reflectance_filtering_tpu.cli.train import main
+    from reflectance_filtering.cli.train import main
     for ds in ("sintel", "mixed"):
         with pytest.raises(NotImplementedError, match="albedo"):
             main(["--stage=fit", "--iterations=8", "--batch_size=4",
@@ -309,7 +313,7 @@ def test_filter_visualizations_written(dataset, tmp_path):
     """The images/ artifact dir gets a vis_square filter grid per
     checkpoint (the reference created the dir but left its _vis_square
     helper unwired)."""
-    from reflectance_filtering_tpu.cli.train import main
+    from reflectance_filtering.cli.train import main
     results_root = str(tmp_path / "results")
     main(["--stage=fit", "--iterations=8", "--batch_size=4",
           "--checkpoint_interval=4", "--networkType=convStaticSkipLayers",
@@ -326,7 +330,7 @@ def test_resume_with_different_batch_size_evals_real_snapshots(
     """A --startOver=0 resume with a new batch_size produces snapshot
     sample counts off the old grid; the post-fit eval sweep must target
     the snapshots that actually exist, not an arithmetic grid."""
-    from reflectance_filtering_tpu.cli.train import main
+    from reflectance_filtering.cli.train import main
     common = ["--networkType=convStaticSkipLayers", "--numLayers=1",
               "--num_filters_log=2", "--kernel_pad=0",
               "--RS_est_mode=rDirectly", "--height=32", "--width=32",
@@ -355,7 +359,7 @@ def test_resume_off_grid_batch_size_still_snapshots(dataset, tmp_path):
     """The review scenario: resume with a batch size whose sample counts
     never hit the interval grid (base=12, bs=5 -> 17, 22, 27; old
     modulo rule wrote NO intermediate snapshot until finalize)."""
-    from reflectance_filtering_tpu.cli.train import main
+    from reflectance_filtering.cli.train import main
     common = ["--networkType=convStaticSkipLayers", "--numLayers=1",
               "--num_filters_log=2", "--kernel_pad=0",
               "--RS_est_mode=rDirectly", "--height=32", "--width=32",
@@ -377,7 +381,7 @@ def test_resume_off_grid_batch_size_still_snapshots(dataset, tmp_path):
 def test_predict_stage_without_checkpoint_fails_loudly(dataset, tmp_path):
     """--stage=predict with no --predictCaffemodel used to be a silent
     no-op (exit 0, nothing predicted)."""
-    from reflectance_filtering_tpu.cli.train import main
+    from reflectance_filtering.cli.train import main
     with pytest.raises(ValueError, match="predictCaffemodel"):
         main(["--stage=predict", "--experiment=np",
               "--results_root", str(tmp_path / "np"),

@@ -9,9 +9,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from reflectance_filtering_tpu.losses.whdr import (
+from reflectance_filtering.losses.whdr import (
     whdr, whdr_batch, whdr_hinge, whdr_hinge_batch, parse_wdm_string, EPS)
-from reflectance_filtering_tpu.losses.losses import boundary_loss, lambert_loss
+from reflectance_filtering.losses.losses import boundary_loss, lambert_loss
 
 K = 40  # padded comparison capacity for tests
 
@@ -274,7 +274,7 @@ def test_ratio_subsample_count_matches_reference_float64():
     by one on ~120 (ratio, n) pairs (e.g. 0.6*25 -> 16, f64 gives 15)."""
     import jax.numpy as jnp
 
-    from reflectance_filtering_tpu.losses.whdr import _ratio_ceil
+    from reflectance_filtering.losses.whdr import _ratio_ceil
 
     n = np.arange(1182)
     for ratio in [0.1, 0.25, 0.3, 0.5, 0.6, 0.7, 0.9]:
@@ -302,7 +302,7 @@ def _rand_blob(rng, b, k, num):
 def test_host_select_uncapped_is_identity_loss():
     """num <= cap: selection is the deterministic prefix, so the compact
     blob gives the EXACT full-blob hinge loss."""
-    from reflectance_filtering_tpu.losses.whdr import (
+    from reflectance_filtering.losses.whdr import (
         select_comparisons_host, whdr_hinge_batch)
     rng = np.random.RandomState(0)
     refl = jnp.asarray(rng.rand(2, 8, 9, 1).astype(np.float32))
@@ -318,7 +318,7 @@ def test_host_select_cap_matches_manual_weighted_mean():
     """num > cap: the compact-blob loss equals the weighted mean over
     exactly the selected rows (and the selection is a uniform
     no-replacement draw from the first num_eval rows)."""
-    from reflectance_filtering_tpu.losses.whdr import (
+    from reflectance_filtering.losses.whdr import (
         select_comparisons_host, whdr_hinge_batch)
     rng = np.random.RandomState(3)
     refl = jnp.asarray(rng.rand(1, 8, 9, 1).astype(np.float32))
@@ -343,7 +343,7 @@ def test_host_select_cap_matches_manual_weighted_mean():
 
 
 def test_host_select_applies_dense_skip_and_ratio():
-    from reflectance_filtering_tpu.losses.whdr import (
+    from reflectance_filtering.losses.whdr import (
         select_comparisons_host, DENSE_SKIP_THRESHOLD)
     rng = np.random.RandomState(5)
     blob = _rand_blob(rng, 1, 400, DENSE_SKIP_THRESHOLD + 50)
@@ -359,8 +359,8 @@ def test_host_select_applies_dense_skip_and_ratio():
 def test_fit_host_select_path_runs_and_is_deterministic():
     """An oversized blob (K > 1500) routes fit() through the host-side
     selection + compact-feed trainer; same seed => identical params."""
-    from reflectance_filtering_tpu.models.networks import NetworkConfig
-    from reflectance_filtering_tpu.train.loop import LossConfig, fit
+    from reflectance_filtering.models.networks import NetworkConfig
+    from reflectance_filtering.train.loop import LossConfig, fit
     rng = np.random.RandomState(2)
     k = 1520
     X = {"images": rng.rand(4, 16, 16, 3).astype(np.float32),

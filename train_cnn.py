@@ -3,9 +3,9 @@
 
 Flag-compatible with the reference's training/train_with_barrista.py; the
 training step runs as a single XLA program per batch.  See
-reflectance_filtering_tpu/cli/train.py.
+reflectance_filtering/cli/train.py.
 """
-from reflectance_filtering_tpu.cli.train import main
+from reflectance_filtering.cli.train import main
 
 if __name__ == "__main__":
     main()
